@@ -1,6 +1,6 @@
-"""getdist_tpu — TPU-native MCMC sample analysis.
+"""getdist_tpu — accelerator-native MCMC sample analysis in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of GetDist
+A ground-up JAX/XLA re-design of the capabilities of GetDist
 (reference: cmbant/getdist v1.7.7): weighted chain statistics, FFT-convolved
 kernel density estimation with automatic Botev Improved-Sheather-Jones
 bandwidths, boundary/multiplicative-bias corrections, convergence
@@ -64,20 +64,17 @@ if os.path.exists(_config_file):
     loglevel = _ini.string("logging", "") or None
 
 
-# Persistent XLA compilation cache: the fused pipelines cost tens of
-# seconds to compile on remote-compile environments; caching them on disk
-# makes every process after the first start warm. Opt out with
-# GETDIST_TPU_COMPILE_CACHE=0 or override via JAX_COMPILATION_CACHE_DIR.
-if os.environ.get("GETDIST_TPU_COMPILE_CACHE") != "0" and not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-    _xla_cache = make_cache_dir()
-    if _xla_cache:
-        try:
-            import jax as _jax
+# Persistent XLA compilation cache: the fused pipelines take tens of
+# seconds to compile, so every process after the first starts warm. Where
+# JAX_COMPILATION_CACHE_DIR is set JAX reads it itself and nothing is set
+# here; otherwise the cache lives at a fixed path next to the package
+# (``<checkout>/.jax_cache``), since the path is part of the cache key.
+compile_cache_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    import jax as _jax
 
-            _jax.config.update("jax_compilation_cache_dir", os.path.join(_xla_cache, "xla_cache"))
-            _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-        except Exception:  # pragma: no cover - jax unavailable or too old
-            pass
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 
 def set_logging(log_level):

@@ -34,7 +34,7 @@ int gdt_pair_hists(const int32_t* ixs, int64_t n, int64_t p, const double* w,
             const int32_t* ia = ixs + pair_a[j] * n;
             const int32_t* ib = ixs + pair_b[j] * n;
             double* h = out + j * cells;
-            // rows = b, cols = a (the _make2Dhist / _pair_hist_256 layout).
+            // rows = b, cols = a (the _make2Dhist / ops.histograms layout).
             // Indices are documented pre-clipped, but clamp defensively
             // (branch-predictable, ~free): an out-of-range value from a
             // caller-contract violation must not become a silent

@@ -9,8 +9,7 @@ for forecast plots. Complements :class:`~getdist_tpu.gaussian_mixtures.GaussianN
 ``gaussian_mixtures.py:439-457`` does) with the matrix algebra around it.
 
 All functions are plain numpy over (p, p) arrays: Fisher matrices are tiny,
-so device dispatch would be pure overhead (see docs/performance.md,
-"Host-first parity path").
+so device dispatch would be pure overhead.
 """
 
 import numpy as np

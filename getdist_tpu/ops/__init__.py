@@ -1,4 +1,4 @@
-"""Device-side numerical kernels (jit/vmap/Pallas).
+"""Device-side numerical kernels (jit/vmap, one CUDA histogram kernel).
 
 Layer L0-L2 of the framework: FFT/DCT primitives, convolution engines,
 weighted-sample binning and statistics, ISJ bandwidth optimization, and the

@@ -263,9 +263,9 @@ def convolveGaussianTrunc(x, sigma, sigma_range=4.0, mode="same"):
 
 # ---------------------------------------------------------------------------
 # host (numpy) twins — the parity path's per-pair convolutions run on grids
-# of a few hundred bins where one remote device dispatch (+ a per-shape jit
-# compile) costs orders of magnitude more than the FFT itself; see
-# docs/performance.md. Same padding/slicing semantics as the jit versions.
+# of a few hundred bins where one device dispatch (+ a per-shape jit
+# compile) costs orders of magnitude more than the FFT itself. Same
+# padding/slicing semantics as the jit versions.
 # ---------------------------------------------------------------------------
 
 

@@ -2,16 +2,15 @@
 
 The reference implements DCTs with ``scipy.fftpack`` (unnormalized
 conventions; see reference ``getdist/convolve.py:565-570`` and
-``getdist/kde_bandwidth.py:117``). TPUs have no native DCT, and jax only
+``getdist/kde_bandwidth.py:117``). XLA has no native DCT, and jax only
 ships a type-II forward transform, so we build type-II/III transforms from a
 single complex FFT (Makhoul's even-odd permutation) with exactly the
 ``scipy.fftpack`` scaling so bandwidths and smoothed densities are
 numerically comparable to the reference.
 
 All transforms here are pure functions of statically-shaped arrays: safe to
-``jit``/``vmap``, and they compile to XLA FFT ops that run on the TPU's
-vector unit (grid sizes are 1024/2048 for 1D and 256^2 for 2D, so these are
-VMEM-resident and cheap; the FFTs are *not* the bottleneck — binning is).
+``jit``/``vmap``, and they compile to XLA FFT ops (cuFFT on the GPU; grid
+sizes are 1024/2048 for 1D and 256^2 for 2D, so they are cheap).
 """
 
 from functools import partial

@@ -2,7 +2,7 @@
 
 Re-design of the reference's per-parameter Python loops
 (``getdist/chains.py:373-412, 709-733``) as batched XLA ops: weighted means
-and covariances become single matmuls that map onto the MXU, confidence
+and covariances become single matmuls, confidence
 limits use device sort + cumulative sums, and the Gaussian-KDE effective
 sample size's lag terms (``chains.py:477-635``) are computed with
 roll+mask so the lag can be a traced value (no per-lag recompiles).
@@ -28,18 +28,21 @@ __all__ = [
     "gelman_rubin_eigenvalues",
 ]
 
+# f32 products may otherwise run in TF32 on the GPU
+_PREC = jax.lax.Precision.HIGHEST
+
 
 @jax.jit
 def weighted_mean(samples, weights):
     """Weighted mean per column: ``w @ X / sum(w)``.
 
-    ``samples``: (N, p) or (N,), ``weights``: (N,). A single matvec —
-    MXU-friendly and order-stable under XLA's tree reductions.
+    ``samples``: (N, p) or (N,), ``weights``: (N,). A single matvec,
+    order-stable under XLA's tree reductions.
     """
     norm = jnp.sum(weights)
     if samples.ndim == 1:
-        return jnp.dot(weights, samples) / norm
-    return jnp.matmul(weights, samples, precision=jax.lax.Precision.HIGHEST) / norm
+        return jnp.dot(weights, samples, precision=_PREC) / norm
+    return jnp.matmul(weights, samples, precision=_PREC) / norm
 
 
 @jax.jit
@@ -51,8 +54,8 @@ def weighted_var(samples, weights, means=None):
         means = weighted_mean(samples, weights)
     diffs = samples - means
     if samples.ndim == 1:
-        return jnp.dot(weights, diffs * diffs) / norm
-    return jnp.matmul(weights, diffs * diffs, precision=jax.lax.Precision.HIGHEST) / norm
+        return jnp.dot(weights, diffs * diffs, precision=_PREC) / norm
+    return jnp.matmul(weights, diffs * diffs, precision=_PREC) / norm
 
 
 @jax.jit
@@ -64,7 +67,7 @@ def weighted_cov(samples, weights, means=None):
         means = weighted_mean(samples, weights)
     diffs = samples - means
     weighted = diffs * weights[:, None]
-    return jnp.matmul(weighted.T, diffs, precision=jax.lax.Precision.HIGHEST) / norm
+    return jnp.matmul(weighted.T, diffs, precision=_PREC) / norm
 
 
 @jax.jit
@@ -135,10 +138,11 @@ def gelman_rubin_eigenvalues(chain_means, chain_covs, global_means):
     (reference ``getGelmanRubinEigenvalues``, ``chains.py:1446-1474``).
     """
     diffs = chain_means - global_means
-    meanscov = jnp.einsum("ci,cj->ij", diffs, diffs) / (chain_means.shape[0] - 1)
+    meanscov = jnp.einsum("ci,cj->ij", diffs, diffs, precision=_PREC) / (chain_means.shape[0] - 1)
     meancov = jnp.mean(chain_covs, axis=0)
     w, u = jnp.linalg.eigh(meancov)
     if not bool(jnp.min(w) > 0):
         return None
     u = u / jnp.sqrt(w)
-    return jnp.linalg.eigvalsh(u.T @ meanscov @ u)
+    scaled = jnp.matmul(jnp.matmul(u.T, meanscov, precision=_PREC), u, precision=_PREC)
+    return jnp.linalg.eigvalsh(scaled)

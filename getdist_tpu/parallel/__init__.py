@@ -1,11 +1,11 @@
-"""Multi-chip scaling: device mesh + sharded sample reductions.
+"""Multi-device scaling: device mesh + sharded sample reductions.
 
 The reference is single-process (SURVEY.md §2.6); this package is the
-TPU-native scaling layer it never had. Chains are sharded on the sample
+multi-device scaling layer it never had. Chains are sharded on the sample
 axis across a ``jax.sharding.Mesh``; every sample-linear reduction (fine
 histograms, weighted moments, N_eff lag terms) runs per-shard under
 ``shard_map`` and is combined with a single ``psum`` of the small binned
-state (1024 or 256^2 grids), which rides ICI. Post-binning KDE work is
+state (1024 or 256^2 grids). Post-binning KDE work is
 grid-local and replicated — no large cross-device tensors exist anywhere
 in the pipeline.
 """

@@ -2,9 +2,9 @@
 
 Each device reduces its local sample shard to the small binned state
 (moments, 1D fine histograms, per-pair 2D histograms); one ``psum`` over
-the sample axis combines them. The collective payload is tiny — p^2 for
-moments, P x fine_bins and K x 256^2 for histograms — so communication
-rides ICI and is negligible next to the local one-hot matmuls.
+the sample axis combines them. The collective payload is small — p^2 for
+moments, P x fine_bins and K x 256^2 for histograms — next to the O(N)
+local binning.
 """
 
 from collections import OrderedDict
@@ -16,14 +16,11 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from getdist_tpu.ops.batched import (
-    _conv2d_same_batch,
-    _gauss_kernel_2d,
-    _onehot_hist_1d,
-    _onehot_hist_rows,
-    _pair_hist_256,
-)
+from getdist_tpu.ops.batched import _conv2d_same_batch, _gauss_kernel_2d
+from getdist_tpu.ops.histograms import pair_histograms, row_histograms
 from getdist_tpu.parallel.mesh import SAMPLE_AXIS
+
+_PREC = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "sharded_moments",
@@ -56,7 +53,7 @@ def _build_sharded(mesh, program, static_cfg, arg_names):
     """shard_map + jit wrapper running ``program`` (all_1d/all_2d_densities)
     with samples/weights sharded on the mesh's sample axis and every other
     array replicated; grid-local stages run replicated per device and all
-    sample reductions psum over ICI (the fused programs' ``axis_name``
+    sample reductions psum over the mesh (the fused programs' ``axis_name``
     hooks)."""
     key = (mesh, program.__name__, static_cfg, arg_names)
     fn = _PROGRAM_CACHE.get(key)
@@ -92,7 +89,7 @@ def sharded_all_1d_densities(mesh, samples, weights, **kwargs):
     for k, v in kwargs.items():
         if v is None:
             continue
-        if k in ("fine_bins", "mult_bias_order", "exact_weights"):
+        if k in ("fine_bins", "mult_bias_order"):
             static_cfg.append((k, v))
         else:
             arrays[k] = jnp.asarray(v)
@@ -104,10 +101,6 @@ _ALL_2D_STATIC = (
     "fine_bins",
     "mult_bias_order",
     "winw",
-    "use_pallas",
-    "static_pairs",
-    "int8_weights",
-    "exact_weights",
     "boundary_order",
     "max_corr",
     "enable_shear",
@@ -120,7 +113,7 @@ def sharded_all_2d_densities(mesh, samples, weights, pair_a, pair_b, neff, binmi
     """:func:`getdist_tpu.ops.batched.all_2d_densities` over a sample-sharded
     mesh, same signature/result (replicated): the full pipeline — limits,
     periodic axes, shearing, meanlikes, bandwidth overrides, histogram
-    reuse — with the pair binning psum'd over ICI."""
+    reuse — with the pair binning psum'd over the mesh."""
     from getdist_tpu.ops import batched
 
     arrays = {
@@ -158,10 +151,10 @@ def sharded_moments(mesh, samples, weights):
     )
     def _local(s, w):
         norm = jax.lax.psum(jnp.sum(w), SAMPLE_AXIS)
-        first = jax.lax.psum(w @ s, SAMPLE_AXIS)
+        first = jax.lax.psum(jnp.matmul(w, s, precision=_PREC), SAMPLE_AXIS)
         means = first / norm
         diffs = s - means
-        cov = jax.lax.psum((diffs * w[:, None]).T @ diffs, SAMPLE_AXIS) / norm
+        cov = jax.lax.psum(jnp.matmul((diffs * w[:, None]).T, diffs, precision=_PREC), SAMPLE_AXIS) / norm
         return norm, means, cov
 
     return jax.jit(_local)(samples, weights)
@@ -177,55 +170,23 @@ def sharded_hist_1d(mesh, ix, weights, nbins):
         out_specs=P(),
     )
     def _local(ix_shard, w_shard):
-        hists = _onehot_hist_rows(ix_shard, w_shard, nbins)
-        return jax.lax.psum(hists, SAMPLE_AXIS)
+        return jax.lax.psum(row_histograms(ix_shard, w_shard, nbins), SAMPLE_AXIS)
 
     return jax.jit(_local)(ix, weights)
 
 
-def sharded_pair_hists(mesh, ix, weights, pair_a, pair_b, static_pairs=None, interpret=False):
-    """Global (K, 256, 256) pair histograms from sharded index rows.
-
-    With ``static_pairs`` (tuple of (a, b)), each shard runs the b-anchored
-    Pallas kernel on its local samples (``interpret=True`` for CPU meshes);
-    one psum of the (K, 256, 256) state combines shards over ICI.
-    """
+def sharded_pair_hists(mesh, ix, weights, pair_a, pair_b, nbins=256):
+    """Global (K, nbins, nbins) pair histograms from sharded index rows:
+    each shard bins its local samples, one psum combines the shards."""
 
     @partial(
         shard_map,
         mesh=mesh,
         in_specs=(P(None, SAMPLE_AXIS), P(SAMPLE_AXIS), P(), P()),
         out_specs=P(),
-        # pallas_call outputs carry no varying-mesh-axes metadata, which
-        # trips shard_map's static vma check
-        check_vma=False,
     )
     def _local(ix_shard, w_shard, pa, pb):
-        if static_pairs is not None:
-            from getdist_tpu.ops.pallas_kernels import group_pairs, pair_histograms_grouped
-
-            n_local = ix_shard.shape[1]
-            block = 4096 if n_local >= 4096 else 512
-            n_pad = (-n_local) % block
-            ix_pm = jnp.pad(ix_shard, ((0, 0), (0, n_pad))).astype(jnp.uint8)
-            w_pad = jnp.pad(w_shard, (0, n_pad))
-            grp_a, grp_b, inv = group_pairs(static_pairs)
-            hists = pair_histograms_grouped(
-                ix_pm,
-                w_pad,
-                jnp.asarray(grp_a),
-                jnp.asarray(grp_b),
-                jnp.asarray(inv),
-                block=block,
-                interpret=interpret,
-            )
-        else:
-
-            def one(ab):
-                return _pair_hist_256(ix_shard[ab[0]], ix_shard[ab[1]], w_shard)
-
-            hists = jax.lax.map(one, (pa, pb))
-        return jax.lax.psum(hists, SAMPLE_AXIS)
+        return jax.lax.psum(pair_histograms(ix_shard, w_shard, pa, pb, nbins), SAMPLE_AXIS)
 
     return jax.jit(_local)(ix, weights, pair_a, pair_b)
 
@@ -252,8 +213,8 @@ def sharded_triangle_step(mesh, samples, weights, pair_a, pair_b, fine_bins=128,
         mins = jax.lax.pmin(jnp.min(cols, axis=1), SAMPLE_AXIS)
         maxs = jax.lax.pmax(jnp.max(cols, axis=1), SAMPLE_AXIS)
         norm = jax.lax.psum(jnp.sum(w), SAMPLE_AXIS)
-        means = jax.lax.psum(cols @ w, SAMPLE_AXIS) / norm
-        variances = jax.lax.psum(((cols - means[:, None]) ** 2) @ w, SAMPLE_AXIS) / norm
+        means = jax.lax.psum(jnp.matmul(cols, w, precision=_PREC), SAMPLE_AXIS) / norm
+        variances = jax.lax.psum(jnp.matmul((cols - means[:, None]) ** 2, w, precision=_PREC), SAMPLE_AXIS) / norm
         sigmas = jnp.sqrt(variances)
 
         span = maxs - mins
@@ -264,14 +225,8 @@ def sharded_triangle_step(mesh, samples, weights, pair_a, pair_b, fine_bins=128,
             (((cols - binmin[:, None]) / width[:, None]) + 0.5).astype(jnp.int32), 0, fine_bins - 1
         )
 
-        hist1 = _onehot_hist_rows(ix, w, fine_bins, block=1024)
-        hist1 = jax.lax.psum(hist1, SAMPLE_AXIS)
-
-        def one(ab):
-            # 256-wide helper reused at fine_bins<=256 via padding of indices
-            return _pair_hist_256(ix[ab[0]], ix[ab[1]], w, block=1024)[:fine_bins, :fine_bins]
-
-        hist2 = jax.lax.psum(jax.lax.map(one, (pa, pb)), SAMPLE_AXIS)
+        hist1 = jax.lax.psum(row_histograms(ix, w, fine_bins), SAMPLE_AXIS)
+        hist2 = jax.lax.psum(pair_histograms(ix, w, pa, pb, fine_bins), SAMPLE_AXIS)
 
         # replicated grid-local smoothing (rule-of-thumb bandwidths)
         neff_proxy = norm**2 / jax.lax.psum(jnp.sum(w * w), SAMPLE_AXIS)
@@ -302,14 +257,10 @@ def sharded_triangle_densities(
     samples,
     weights,
     contours=(0.68, 0.95),
-    use_pallas=False,
-    interpret=False,
-    exact_weights=None,
     limits_lo=None,
     limits_hi=None,
     periodic=None,
     like_weights=None,
-    int8_weights=False,
     bandwidth_scale_1d=None,
     bandwidth_scale_2d=None,
     max_corr=0.95,
@@ -321,7 +272,7 @@ def sharded_triangle_densities(
     bisection bandwidths, hard-limit boundary kernels, periodic axes,
     frequency-space shearing, meanlikes grids, batched FFT convolutions,
     bias corrections, water-level contours) with every sample reduction
-    psum'd over ICI and the grid-local stages replicated per device.
+    psum'd over the mesh and the grid-local stages replicated per device.
 
     The effective sample sizes come from the real lag estimator: each shard
     exchanges a max-lag halo with its neighbor (ppermute) and the per-lag
@@ -329,12 +280,6 @@ def sharded_triangle_densities(
     (see ``ops.batched._neff_kde_batch``). Returns the (d1, d2) dicts
     (replicated).
     """
-    from getdist_tpu.ops.batched import _bf16_exact_weights
-
-    if exact_weights is None:
-        host_w = isinstance(weights, np.ndarray)
-        exact_weights = not _bf16_exact_weights(np.asarray(weights, np.float32)) if host_w else False
-
     samples = jnp.asarray(samples, jnp.float32)
     weights = jnp.asarray(weights, jnp.float32)
     p = samples.shape[1]
@@ -351,7 +296,6 @@ def sharded_triangle_densities(
         limits_hi=limits_hi,
         periodic=periodic,
         like_weights=like_weights,
-        exact_weights=exact_weights or None,
         bandwidth_scale=bandwidth_scale_1d,
     )
     has_limits = limits_lo is not None or limits_hi is not None or periodic is not None
@@ -365,10 +309,6 @@ def sharded_triangle_densities(
         d1["range"][0],
         d1["range"][1],
         cont,
-        use_pallas=use_pallas or None,
-        static_pairs=tuple(map(tuple, pairs.tolist())) if use_pallas else None,
-        int8_weights=int8_weights or None,
-        exact_weights=exact_weights or None,
         active_lo=d1["active_lo"] if has_limits else None,
         active_hi=d1["active_hi"] if has_limits else None,
         periodic=periodic,

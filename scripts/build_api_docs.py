@@ -21,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 # public modules, in the order the reference's docs index lists its
-# equivalents (docs/source/index.rst), plus the TPU-native additions
+# equivalents (docs/source/index.rst), plus the device-pipeline additions
 MODULES = [
     "getdist_tpu",
     "getdist_tpu.chains",
@@ -41,13 +41,13 @@ MODULES = [
     "getdist_tpu.arviz_wrapper",
     "getdist_tpu.yaml_tools",
     "getdist_tpu.command_line",
+    "getdist_tpu.backend",
     "getdist_tpu.ops.convolve",
     "getdist_tpu.ops.fft",
     "getdist_tpu.ops.batched",
-    "getdist_tpu.ops.dft_conv",
     "getdist_tpu.ops.stats",
     "getdist_tpu.ops.parity_device",
-    "getdist_tpu.ops.pallas_kernels",
+    "getdist_tpu.ops.histograms",
     "getdist_tpu.ops.binning",
     "getdist_tpu.parallel.mesh",
     "getdist_tpu.parallel.reductions",

@@ -77,8 +77,8 @@ def main():
         "All ratios sit at ~1.1 or below. History of the former outliers:",
         "'flat' (1.36 -> 1.00) was fixed by the reference range/4 bandwidth",
         "cap + host-convention rescue for wide-kernel bounded shapes",
-        "(13ca99e); 'trimodal' (5.09 in the stale round-3 table) was a",
-        "TPU-only ISJ root-bracketing loss (XLA hoisted an overflowing",
+        "(13ca99e); 'trimodal' (5.09 in the stale round-3 table) was",
+        "an ISJ root-bracketing loss (XLA hoisted an overflowing",
         "loop-invariant out of the gamma chain) fixed by the log-space",
         "reformulation in ops.batched._isj_log_gamma, plus table staleness.",
         "",

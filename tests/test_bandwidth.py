@@ -144,7 +144,7 @@ def test_isj_1d_multimodal_root_bracketing():
     shallow near the root and a few-1e-3 evaluation error silently forces
     the rule-of-thumb fallback (~6x oversmoothing).
 
-    Regression for a TPU-only failure: XLA hoisted the loop-invariant
+    Regression for a failure seen on an accelerator: XLA hoisted the loop-invariant
     exp(LMAX*log_i) factor (= i^14, inf in f32) out of the bisection loop's
     gamma chain, corrupting the small-h residuals; the fix computes the
     chain in log space (ops.batched._isj_log_gamma), which this test pins

@@ -38,7 +38,7 @@ def _fixture(kind):
 
 def _max_grid_delta(s):
     ref = s.get2DDensityGridData(0, 1)
-    _, dens2 = s.fastDensities(use_pallas=False)
+    _, dens2 = s.fastDensities()
     fused = dens2[("p0", "p1")]
     spline = RectBivariateSpline(fused.y, fused.x, fused.P)
     gx, gy = np.meshgrid(ref.x, ref.y)
@@ -70,7 +70,7 @@ def test_fused_1d_tracks_parity():
     data, _ = _fixture("multimodal")
     s = MCSamples(samples=data, names=["p0", "p1"], labels=["a", "b"])
     ref = s.get1DDensityGridData(0)
-    d1, _ = s.fastDensities(use_pallas=False)
+    d1, _ = s.fastDensities()
     fused = d1["p0"]
     grid = np.clip(ref.x, fused.x[0], fused.x[-1])
     delta = np.abs(fused.Prob(grid) / fused.P.max() - ref.Prob(ref.x) / ref.P.max())
@@ -93,7 +93,6 @@ def test_fused_pipeline_runs_float64():
         d1, d2 = triangle_densities(
             jnp.asarray(data[:20000], jnp.float64),
             jnp.ones(20000, jnp.float64),
-            use_pallas=False,
         )
         assert d1["P"].dtype == jnp.float64
         assert d2["P"].dtype == jnp.float64
@@ -129,7 +128,7 @@ def test_parity_overrides_take_effect():
     pb = jnp.array([1], jnp.int32)
     contours = jnp.array([0.68, 0.95], jnp.float32)
     base = all_1d_densities(s, w)
-    kw = dict(fine_bins=256, use_pallas=False)
+    kw = dict(fine_bins=256)
     ov_small = (jnp.array([0.05]), jnp.array([0.05]), jnp.array([0.0]))
     ov_big = (jnp.array([0.6]), jnp.array([0.6]), jnp.array([0.0]))
     d2s = all_2d_densities(
@@ -155,7 +154,7 @@ def test_fused_meanlikes_tracks_parity():
     y = 0.4 * x + rng.normal(size=n) * 0.9
     loglikes = 0.5 * (x**2 + y**2)
     s = MCSamples(samples=np.c_[x, y], loglikes=loglikes, names=["p0", "p1"], labels=["a", "b"])
-    d1, d2, _pairs = s.fastTriangleDensities(use_pallas=False, meanlikes=True)
+    d1, d2, _pairs = s.fastTriangleDensities(meanlikes=True)
     assert d1["likes"] is not None and d2["likes"] is not None
 
     ref1 = s.get1DDensityGridData(0, meanlikes=True)

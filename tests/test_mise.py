@@ -87,7 +87,7 @@ def test_mise_2d(name, mixture, reference_getdist):
 
 
 def test_mise_fast_path_competitive():
-    """The fused TPU path's 1D density quality should be within ~2x of the
+    """The fused device path's 1D density quality should be within ~2x of the
     parity path's MISE on a smooth case (documented approximations)."""
     import jax.numpy as jnp
 

@@ -95,22 +95,23 @@ def test_sharded_triangle_step(mesh, chain):
 
 
 def test_sharded_pair_hists_pallas_matches_xla():
-    """Per-shard Pallas grouped kernel + psum equals the XLA sharded path."""
+    """Per-shard pair histograms + psum equal the single-device histograms."""
     import jax.numpy as jnp
 
+    from getdist_tpu.ops.histograms import pair_histograms
     from getdist_tpu.parallel.mesh import make_mesh
     from getdist_tpu.parallel.reductions import sharded_pair_hists
 
     rng = np.random.RandomState(3)
-    p, n = 5, 8 * 600  # non-multiple of the small block -> exercises padding
+    p, n = 5, 8 * 601  # shards of an odd length
     ix = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.int32))
     w = jnp.asarray(rng.randint(1, 4, n).astype(np.float32))
     pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
     pa = jnp.asarray(np.array([a for a, _ in pairs], np.int32))
     pb = jnp.asarray(np.array([b for _, b in pairs], np.int32))
     mesh = make_mesh()
-    ref = np.asarray(sharded_pair_hists(mesh, ix, w, pa, pb))
-    got = np.asarray(sharded_pair_hists(mesh, ix, w, pa, pb, static_pairs=tuple(pairs), interpret=True))
+    got = np.asarray(sharded_pair_hists(mesh, ix, w, pa, pb))
+    ref = np.asarray(pair_histograms(ix, w, pa, pb, 256))
     np.testing.assert_array_equal(got, ref)
 
 

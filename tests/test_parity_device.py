@@ -2,8 +2,7 @@
 
 On the CPU x64 test backend the device kernels run the same f64
 arithmetic as the host twins, so agreement here is essentially exact;
-TPU numerics (f64 division rewriting at bin edges, f32 convolutions) are
-measured separately on hardware (scripts/run_parity_tpu_zoo.py).
+chip_smoke.py checks the parity device mode against the host on the GPU.
 """
 
 import numpy as np
@@ -52,11 +51,10 @@ def test_group_pair_hists_exact(chain):
     lo = x.min(axis=0) - 0.1
     width = (x.max(axis=0) + 0.1 - lo) / 255
     ix = pdev.bin_indices(jnp.asarray(x), jnp.asarray(lo), jnp.asarray(width))
-    parts = pdev.weight_parts(jnp.asarray(w, jnp.float32))
     pairs = [(0, 1), (1, 2), (0, 3)]
     hists = np.asarray(
         pdev.group_pair_hists(
-            ix, jnp.asarray([a for a, _ in pairs]), jnp.asarray([b for _, b in pairs]), parts, 256
+            ix, [a for a, _ in pairs], [b for _, b in pairs], jnp.asarray(w, jnp.float32), 256
         )
     )
     ixh = np.asarray(ix)
@@ -72,12 +70,10 @@ def test_group_pair_hists_noninteger_weights_exact_f32(chain):
     lo = x.min(axis=0) - 0.1
     width = (x.max(axis=0) + 0.1 - lo) / 255
     ix = pdev.bin_indices(jnp.asarray(x), jnp.asarray(lo), jnp.asarray(width))
-    parts = pdev.weight_parts(jnp.asarray(w, jnp.float32))
-    assert len(parts) == 3
-    hists = np.asarray(pdev.group_pair_hists(ix, jnp.asarray([0]), jnp.asarray([1]), parts, 256))
+    hists = np.asarray(pdev.group_pair_hists(ix, [0], [1], jnp.asarray(w, jnp.float32), 256))
     ixh = np.asarray(ix)
     ref = np.bincount(ixh[0] + ixh[1] * 256, weights=w, minlength=256 * 256).reshape(256, 256)
-    # f64 bincount vs exact-f32 splitting: agreement at f32 representation level
+    # f64 bincount vs an f32 scatter-add: agreement at f32 representation level
     assert np.abs(hists[0] - ref).max() <= 1e-3
 
 
@@ -156,41 +152,29 @@ def test_acl_batch_matches_host(chain):
 
 
 def test_pallas_group_hists_interpret_bit_exact(chain):
-    """The Pallas-routed parity histograms (the TPU path) must be
-    BIT-identical to the lax.map route: integer bin sums below 2**24 are
-    exact in every kernel. Interpret mode covers the routing, the tile
-    plan/gather mapping, padding, and the orientation convention on CPU;
-    hardware exactness is measured by scripts/probe_parity_hists_r5.py."""
+    """The parity histograms must be BIT-identical to per-pair np.bincount
+    for integral weights (bin sums below 2**24 are exact in any order),
+    both for the triangle's param pairs and for a unique-b pair list over
+    many stacked rows (the sheared lead/residual shape)."""
     x, w = chain
-    import jax
-
     lo = x.min(axis=0) - 0.1
     width = (x.max(axis=0) + 0.1 - lo) / 255
     ix = pdev.bin_indices(jnp.asarray(x), jnp.asarray(lo), jnp.asarray(width))
-    parts = pdev.weight_parts(jnp.asarray(w, jnp.float32))
+    w32 = jnp.asarray(w, jnp.float32)
     p = x.shape[1]
     pa = np.array([a for a in range(p) for b in range(a + 1, p)], np.int32)
     pb = np.array([b for a in range(p) for b in range(a + 1, p)], np.int32)
-    ref = np.asarray(pdev.group_pair_hists(ix, pa, pb, parts, 256, use_pallas=False))
-    with jax.enable_x64(False):
-        # tiled route (static param pairs, few rows)
-        tiled = np.asarray(pdev._pallas_group_hists(ix, pa, pb, parts, int8_ok=True, interpret=True))
-        np.testing.assert_array_equal(ref, tiled)
-        tiled_bf16 = np.asarray(pdev._pallas_group_hists(ix, pa, pb, parts, int8_ok=False, interpret=True))
-        np.testing.assert_array_equal(ref, tiled_bf16)
-        # v1 route: unique-b pair list over MANY stacked rows (the sheared
-        # lead/residual shape, where the tile plan would mostly pad — check
-        # the routing really picks v1 for it)
-        stacked = jnp.concatenate([ix + k for k in range(10)], axis=0) % 256
-        r = int(stacked.shape[0])
-        pa2 = np.arange(r // 2, dtype=np.int32)
-        pb2 = np.arange(r // 2, r, dtype=np.int32)
-        from getdist_tpu.ops.batched import _tile_group_for
 
-        g = _tile_group_for(r)
-        ng = -(-r // g)
-        slots = ng * (ng - 1) // 2 * g * g + ng * g * (g - 1) // 2
-        assert slots > max(2 * len(pa2), len(pa2) + 64), "fixture must exercise the v1 route"
-        ref2 = np.asarray(pdev.group_pair_hists(stacked, pa2, pb2, parts, 256, use_pallas=False))
-        v1 = np.asarray(pdev._pallas_group_hists(stacked, pa2, pb2, parts, int8_ok=False, interpret=True))
-        np.testing.assert_array_equal(ref2, v1)
+    def bincount_ref(rows, pa_, pb_):
+        return np.stack(
+            [np.bincount(rows[b] * 256 + rows[a], weights=w, minlength=65536).reshape(256, 256) for a, b in zip(pa_, pb_)]
+        )
+
+    got = np.asarray(pdev.group_pair_hists(ix, pa, pb, w32, 256))
+    np.testing.assert_array_equal(got, bincount_ref(np.asarray(ix), pa, pb))
+    stacked = jnp.concatenate([ix + k for k in range(10)], axis=0) % 256
+    r = int(stacked.shape[0])
+    pa2 = np.arange(r // 2, dtype=np.int32)
+    pb2 = np.arange(r // 2, r, dtype=np.int32)
+    got2 = np.asarray(pdev.group_pair_hists(stacked, pa2, pb2, w32, 256))
+    np.testing.assert_array_equal(got2, bincount_ref(np.asarray(stacked), pa2, pb2))

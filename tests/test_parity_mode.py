@@ -117,3 +117,19 @@ def test_parity_mode_mixed_kernel_scales_hits_multiple_buckets():
         fused = dens2[(a, b)]
         assert fused.P.shape == ref.P.shape, (a, b)
         assert float(np.abs(fused.P - ref.P / ref.P.max()).max()) < 1e-5, (a, b)
+
+
+def test_parity_mode_1d_stays_host_under_fused_routing(monkeypatch):
+    """Where density queries route to the fused pipeline by default (the
+    GPU; forced here with GETDIST_TPU_FUSED=1), the parity mode must still
+    serve its 1D densities from the byte-exact host path."""
+    import jax
+
+    if not jax.config.jax_enable_x64:
+        pytest.skip("parity mode needs x64")
+    samps = shapes_2d()["skew"].MCSamples(20000, random_state=4)
+    host = samps.get1DDensityGridData(0)
+    samps.density1D.clear()
+    monkeypatch.setenv("GETDIST_TPU_FUSED", "1")
+    dens1, _ = samps.fastParityDensities()
+    np.testing.assert_array_equal(dens1["x"].P, host.P)

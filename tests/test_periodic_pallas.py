@@ -1,13 +1,12 @@
-"""2D periodic-parameter parity and Pallas kernel regression tests."""
+"""2D periodic-parameter parity and pair-histogram regression tests."""
 
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
 from getdist_tpu import chains as tchains
 from getdist_tpu.mcsamples import MCSamples
-from getdist_tpu.ops.pallas_kernels import pair_histograms
+from getdist_tpu.ops.histograms import _pad_samples, pair_histograms
 
 tchains.print_load_details = False
 
@@ -45,14 +44,15 @@ def test_periodic_both_axes_parity(reference_getdist):
 
 
 def test_pallas_pair_histograms_interpret():
+    """Pair histograms (rows = b, cols = a) match np.add.at; 3 of 5 rows
+    paired, one row used twice."""
     rng = np.random.RandomState(0)
     p, n = 5, 4096 * 2
-    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.uint8))
+    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.int32))
     w = jnp.asarray(rng.randint(1, 5, n).astype(np.float32))
-    # 3 pairs: exercises the pad-to-group path (group=8)
     pa = jnp.asarray(np.array([0, 2, 3], np.int32))
     pb = jnp.asarray(np.array([1, 4, 4], np.int32))
-    hists = np.asarray(pair_histograms(ix_pm, w, pa, pb, interpret=True))
+    hists = np.asarray(pair_histograms(ix_pm, w, pa, pb, 256))
     assert hists.shape == (3, 256, 256)
     ixn = np.asarray(ix_pm)
     wn = np.asarray(w)
@@ -63,26 +63,32 @@ def test_pallas_pair_histograms_interpret():
 
 
 def test_pallas_rejects_unaligned():
-    ix_pm = jnp.zeros((3, 100), jnp.uint8)
-    w = jnp.ones(100, jnp.float32)
-    with pytest.raises(AssertionError):
-        pair_histograms(ix_pm, w, jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32), interpret=True)
+    """The GPU kernel reads 4 samples per vector load: an unaligned sample
+    count is padded with zero-weight samples, which leave every bin
+    unchanged."""
+    rng = np.random.RandomState(4)
+    ix = jnp.asarray(rng.randint(0, 256, (3, 101)).astype(np.int32))
+    w = jnp.asarray(rng.randint(1, 4, 101).astype(np.float32))
+    ix8, w_pad = _pad_samples(ix, w)
+    assert ix8.dtype == jnp.uint8 and ix8.shape == (3, 104) and w_pad.shape == (104,)
+    assert np.all(np.asarray(w_pad)[101:] == 0)
+    pa, pb = jnp.asarray([0, 1]), jnp.asarray([2, 2])
+    np.testing.assert_array_equal(
+        np.asarray(pair_histograms(ix8.astype(jnp.int32), w_pad, pa, pb, 256)),
+        np.asarray(pair_histograms(ix, w, pa, pb, 256)),
+    )
 
 
 def test_pallas_grouped_pair_histograms_interpret():
-    from getdist_tpu.ops.pallas_kernels import group_pairs, pair_histograms_grouped
-
+    """All 15 pairs of 6 parameters in the triangle's (a < b) order."""
     rng = np.random.RandomState(1)
     p, n = 6, 4096
-    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.uint8))
+    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.int32))
     w = jnp.asarray(rng.randint(1, 5, n).astype(np.float32))
-    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]  # 15 pairs, ragged groups
-    grp_a, grp_b, inv = group_pairs(pairs, group=4)
-    hists = np.asarray(
-        pair_histograms_grouped(
-            ix_pm, w, jnp.asarray(grp_a), jnp.asarray(grp_b), jnp.asarray(inv), group=4, interpret=True
-        )
-    )
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa = jnp.asarray(np.array([a for a, _ in pairs], np.int32))
+    pb = jnp.asarray(np.array([b for _, b in pairs], np.int32))
+    hists = np.asarray(pair_histograms(ix_pm, w, pa, pb, 256))
     assert hists.shape == (15, 256, 256)
     ixn, wn = np.asarray(ix_pm), np.asarray(w)
     for k, (a, b) in enumerate(pairs):
@@ -92,6 +98,8 @@ def test_pallas_grouped_pair_histograms_interpret():
 
 
 def test_all_2d_static_pairs_matches_dynamic():
+    """Histograms built outside the program and passed as ``hists_in``
+    give the same densities as the in-program binning."""
     from getdist_tpu.ops import batched
 
     rng = np.random.RandomState(2)
@@ -104,26 +112,22 @@ def test_all_2d_static_pairs_matches_dynamic():
     cont = jnp.asarray(np.array([0.68, 0.95], np.float32))
     d1 = batched.all_1d_densities(s, w)
     args = (s, w, pa, pb, d1["neff"], d1["range"][0], d1["range"][1], cont)
-    dyn = batched.all_2d_densities(*args, use_pallas=False)
-    # interpret path unavailable through all_2d on CPU; static grouping is
-    # exercised via the XLA fallback equivalence of its inputs plus the
-    # grouped-kernel interpret test above; here check static arg plumbs
-    stat = batched.all_2d_densities(*args, use_pallas=False, static_pairs=tuple(pairs))
+    dyn = batched.all_2d_densities(*args, export_hists=True)
+    stat = batched.all_2d_densities(*args, hists_in=dyn["hists"])
     np.testing.assert_array_equal(np.asarray(dyn["P"]), np.asarray(stat["P"]))
 
 
 def test_pallas_grouped_int8_exact():
-    """int8 MXU histogram variant is exact for integer weights in [0, 127]."""
-    from getdist_tpu.ops.pallas_kernels import group_pairs, pair_histograms_grouped
-
+    """Integer weights across the full [0, 127] range, zeros included, are
+    exact."""
     rng = np.random.RandomState(2)
     p, n = 4, 4096
-    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.uint8))
-    w = jnp.asarray(rng.randint(0, 128, n).astype(np.float32))  # full int8 range incl. 0
+    ix_pm = jnp.asarray(rng.randint(0, 256, (p, n)).astype(np.int32))
+    w = jnp.asarray(rng.randint(0, 128, n).astype(np.float32))
     pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
-    grp_a, grp_b, inv = group_pairs(pairs, group=4)
-    args = (jnp.asarray(grp_a), jnp.asarray(grp_b), jnp.asarray(inv))
-    h8 = np.asarray(pair_histograms_grouped(ix_pm, w, *args, group=4, interpret=True, int8_weights=True))
+    pa = jnp.asarray(np.array([a for a, _ in pairs], np.int32))
+    pb = jnp.asarray(np.array([b for _, b in pairs], np.int32))
+    h8 = np.asarray(pair_histograms(ix_pm, w, pa, pb, 256))
     assert h8.dtype == np.float32
     ixn, wn = np.asarray(ix_pm), np.asarray(w)
     for k, (a, b) in enumerate(pairs):

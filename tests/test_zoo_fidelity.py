@@ -45,7 +45,7 @@ DEFAULT_TOL_2D = 5e-3
 
 def _max_grid_delta_2d(s):
     ref = s.get2DDensityGridData(0, 1)
-    _, dens2 = s.fastDensities(use_pallas=False)
+    _, dens2 = s.fastDensities()
     fused = dens2[(s.parName(0), s.parName(1))]
     spline = RectBivariateSpline(fused.y, fused.x, fused.P)
     gx, gy = np.meshgrid(ref.x, ref.y)
@@ -84,7 +84,7 @@ def test_fused_tracks_parity_across_1d_zoo(label):
         ranges = {"p0": list(prob.lims[0])}
     s = MCSamples(samples=cols, names=["p0", "p1"], ranges=ranges)
     ref = s.get1DDensityGridData(0)
-    d1, _ = s.fastDensities(use_pallas=False)
+    d1, _ = s.fastDensities()
     fused = d1["p0"]
     grid = np.clip(ref.x, fused.x[0], fused.x[-1])
     delta = np.abs(fused.Prob(grid) / fused.P.max() - ref.Prob(ref.x) / ref.P.max())
@@ -97,7 +97,7 @@ def test_fragile_assist_engages_on_blind_correlation_searches():
     and the regrid pass must serve f64 host bandwidths (the grid is ~1.9e-2
     wrong without the assist, 9e-4 with it)."""
     samps = _SHAPES_2D["trimodal WJ2"].MCSamples(N_2D, random_state=7)
-    d1, d2, pairs = samps.fastTriangleDensities(use_pallas=False)
+    d1, d2, pairs = samps.fastTriangleDensities()
     assert bool(np.asarray(d2["fragile"])[0]), "fused program no longer flags the pair"
     assert pairs[0] in d2["regrid"], "fragile pair was not host-assisted"
 
@@ -110,7 +110,7 @@ def test_fragile_assist_skips_gaussian_chains():
     rng = np.random.RandomState(5)
     cols = rng.standard_normal((30000, 4))
     s = MCSamples(samples=cols, names=[f"p{i}" for i in range(4)])
-    d1, d2, pairs = s.fastTriangleDensities(use_pallas=False)
+    d1, d2, pairs = s.fastTriangleDensities()
     assert not d2["regrid"], d2["regrid"].keys()
 
 
@@ -127,7 +127,7 @@ def test_wide_kernel_bounded_1d_served_host_exact():
     ref = s.get1DDensity("x")
     ref.normalize()
     s._fused_cache = None
-    d1, _ = s.fastDensities(use_pallas=False)
+    d1, _ = s.fastDensities()
     fused = d1["x"]
     fused.normalize()
     # residual is the f32 transport of the (identical) bandwidth: ~3e-7

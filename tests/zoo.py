@@ -151,7 +151,7 @@ def _fused_2d_density(samps, scale):
     exposes the density post-normalization, so scale via its own setting."""
     samps.updateSettings({"smooth_scale_2D": -float(scale)})
     samps._fused_cache = None
-    _, dens2 = samps.fastDensities(use_pallas=False)
+    _, dens2 = samps.fastDensities()
     density = dens2[(samps.parName(0), samps.parName(1))]
     return density
 
@@ -159,5 +159,5 @@ def _fused_2d_density(samps, scale):
 def _fused_1d_density(samps, scale):
     samps.updateSettings({"smooth_scale_1D": -float(scale)})
     samps._fused_cache = None
-    d1, _ = samps.fastDensities(use_pallas=False)
+    d1, _ = samps.fastDensities()
     return d1[samps.parName(0)]
