@@ -10,7 +10,14 @@ need the card and skip elsewhere; run them there with
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
+# XLA:CPU's multi-threaded FFT is not run-to-run deterministic (a batched
+# rfftn differs in the last bit between two calls of one executable), and
+# the parity tests compare two runs of the f64 pipeline bit for bit; the
+# suite gets its parallelism from test workers instead.
+os.environ["XLA_FLAGS"] = (
+    os.environ.get("XLA_FLAGS", "")
+    + " --xla_force_host_platform_device_count=8 --xla_cpu_multi_thread_eigen=false"
+)
 # Force (not setdefault): the suite is a CPU suite even on a machine with a
 # card, and tests that exec emitted plot scripts / app bundles in
 # subprocesses inherit the setting. GETDIST_TPU_TEST_PLATFORM overrides it
